@@ -8,13 +8,12 @@ Run:  python examples/live_preview.py [--tracer pallas] [--frames 64]
 
 import argparse
 
-import jax
-
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tracer", default=None,
-                    help="brute|cluster|pallas (default: pallas on TPU)")
+                    help="brute|cluster|pallas (default: pallas on a GPU, "
+                         "cluster on the CPU)")
     ap.add_argument("--frames", type=int, default=64)
     ap.add_argument("--width", type=int, default=640)
     ap.add_argument("--height", type=int, default=360)
@@ -24,9 +23,9 @@ def main() -> None:
 
     from unityraytracer_tpu import Renderer, RenderConfig
     from unityraytracer_tpu.models import fixtures
+    from unityraytracer_tpu.render import default_tracer
 
-    on_tpu = jax.default_backend() == "tpu"
-    tracer = args.tracer or ("pallas" if on_tpu else "cluster")
+    tracer = args.tracer or default_tracer()
     cfg = RenderConfig(width=args.width, height=args.height, spp=1, bounces=4,
                        tracer=tracer, cluster_size=64)
     scene = fixtures.scene1()

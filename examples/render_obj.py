@@ -9,12 +9,10 @@ import sys
 import os
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-
-import jax
-
 from unityraytracer_tpu import Camera, Material, RenderConfig, Renderer, SceneBuilder
 from unityraytracer_tpu.models.obj import load_obj_with_materials
 from unityraytracer_tpu.models.skybox import load_environment, sun_sky
+from unityraytracer_tpu.render import default_tracer
 from unityraytracer_tpu.utils.math3d import trs_matrix
 
 
@@ -41,10 +39,8 @@ def main():
 
     cam = Camera.create(position=(0, size * 0.8, -size * 2.2),
                         look_at=(0, size / 2, 0), fov_y_deg=45, aspect=4 / 3)
-    on_tpu = jax.default_backend() == "tpu"
     cfg = RenderConfig(width=800, height=608, bounces=5,
-                       tracer="pallas" if on_tpu else "cluster",
-                       wavefront=True)
+                       tracer=default_tracer(), wavefront=True)
     r = Renderer(scene, cam, cfg)
     r.step(48)
     print("wrote", r.save_screenshot(out))

@@ -1,7 +1,7 @@
 """Render the reference's main demo scene (Scene1) progressively.
 
 Usage: python examples/render_scene1.py [frames] [out.png]
-Uses the fused Pallas tracer on TPU, the interpretable cluster tracer on CPU.
+Uses the Pallas (Triton) tracer on a GPU, the cluster tracer on the CPU.
 """
 
 import sys
@@ -9,21 +9,17 @@ import sys
 import os
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-
-import jax
-
 from unityraytracer_tpu import RenderConfig, Renderer
 from unityraytracer_tpu.models import fixtures
+from unityraytracer_tpu.render import default_tracer
 
 
 def main():
     frames = int(sys.argv[1]) if len(sys.argv) > 1 else 32
     out = sys.argv[2] if len(sys.argv) > 2 else "scene1.png"
 
-    on_tpu = jax.default_backend() == "tpu"
     cfg = RenderConfig(width=640, height=480, spp=1, bounces=4,
-                       tracer="pallas" if on_tpu else "cluster",
-                       wavefront=True)
+                       tracer=default_tracer(), wavefront=True)
     scene = fixtures.scene1()
     camera = fixtures.scene1_camera(aspect=cfg.width / cfg.height)
 

@@ -230,9 +230,8 @@ def test_scene_sharding_accel_is_sharded_and_smaller():
 
 def test_scene_sharding_pallas_matches_single_device():
     """mode="scene" + tracer="pallas": 1/n of the triangles per device
-    through the PER-BOUNCE Pallas kernel (the closest-hit all-reduce is a
-    per-bounce collective, so the full-path megakernel can't serve this
-    mode), min-combined across the mesh. The estimator is stream-identical
+    through the Triton kernel, min-combined across the mesh after every
+    bounce. The estimator is stream-identical
     to the single-device render, so the result must pass the cross-tracer
     RMSE gate against it."""
     from unityraytracer_tpu.utils.image import rmse
@@ -249,41 +248,53 @@ def test_scene_sharding_pallas_matches_single_device():
 
 
 def test_scene_sharding_pallas_accels_are_sharded():
-    """Each device packs only its Morton chunk: the stacked PallasAccel has
-    a leading device axis, per-shard geometry blocks are strictly smaller
-    than the whole-scene pack, and the normalized statics stack into ONE
-    treedef."""
-    from unityraytracer_tpu.ops.pallas_trace import (PallasAccel,
-                                                     prepare_pallas_accel)
+    """mode="scene" + tracer="pallas": each device holds a ClusterAccel of
+    its Morton chunk (leading device axis, sharded over the mesh), and the
+    Triton kernel walking the chunks under shard_map, min-combined across
+    the devices, returns the single-device tracer's closest hits."""
+    from jax.sharding import PartitionSpec as P
+
+    from unityraytracer_tpu.ops.bvh import ClusterAccel, build_accel
+    from unityraytracer_tpu.ops.traverse import make_accel_tracer
     from unityraytracer_tpu.parallel.scene_shard import (
-        shard_scene_pallas_accels)
+        local_accel, make_scene_sharded_tracer)
+    from unityraytracer_tpu.parallel.sharding import AXIS
 
-    from unityraytracer_tpu.ops.pallas_trace import PallasVmemError
-
-    # THE capability this mode buys: a scene past the single-chip
-    # scoped-VMEM ceiling packs fine as 1/n chunks across the mesh.
-    scene = _mesh_scene(140_000)
-    cfg = CFG.replace(tracer="pallas")
+    scene = _mesh_scene()
+    cfg = CFG.replace(tracer="pallas", cluster_size=16)
     mesh = make_mesh()
-    n = mesh.shape["devices"]
-    with pytest.raises(PallasVmemError):
-        prepare_pallas_accel(scene.triangles, scene.materials, scene=scene)
-    stacked = shard_scene_pallas_accels(scene, cfg, n)
-    assert isinstance(stacked, PallasAccel)
-    assert stacked.epluck.shape[0] == n
-    # Global scene bbox rides every shard (binning quantization sees rays
-    # spanning the whole scene on each device).
-    for lo_got, lo_exp in zip(stacked.bbox[:3],
-                              np.minimum(np.minimum(
-                                  np.asarray(scene.triangles.v0),
-                                  np.asarray(scene.triangles.v1)),
-                                  np.asarray(scene.triangles.v2)).min(0)):
-        assert abs(lo_got - float(lo_exp)) < 1e-5
+    n = mesh.shape[AXIS]
+    r = ShardedRenderer(scene, CAM, cfg, seed=0, mode="scene")
+    assert isinstance(r.accel, ClusterAccel)
+    assert r.accel.triangles.v0.shape[0] == n
+    assert any(AXIS in str(l.sharding)
+               for l in jax.tree_util.tree_leaves(r.accel))
 
-    r = ShardedRenderer(_mesh_scene(), CAM, cfg, seed=0, mode="scene")
-    shardings = {str(l.sharding)
-                 for l in jax.tree_util.tree_leaves(r.accel)}
-    assert any("devices" in s for s in shardings)
+    rng = np.random.default_rng(0)
+    n_rays = 256
+    ro = tuple(jax.numpy.asarray(c) for c in
+               rng.uniform([-12, 0.5, -30], [12, 12, -20], (n_rays, 3)).T
+               .astype(np.float32))
+    target = rng.uniform([-10, 0, -10], [10, 3, 10], (n_rays, 3))
+    d = target - np.stack([np.asarray(c) for c in ro], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rd = tuple(jax.numpy.asarray(c) for c in d.T.astype(np.float32))
+
+    def local(accel):
+        tr = make_scene_sharded_tracer(scene, local_accel(accel), cfg,
+                                       AXIS, n)
+        hit = tr(ro, rd)
+        return hit.t, hit.normal
+    t_sh, n_sh = jax.shard_map(local, mesh=mesh, in_specs=(P(AXIS),),
+                               out_specs=P(), check_vma=False)(r.accel)
+    ref = make_accel_tracer(scene, build_accel(scene, cfg), cfg)(ro, rd)
+    hit = np.asarray(ref.t) < 1e30
+    assert hit.mean() > 0.5
+    np.testing.assert_allclose(np.asarray(t_sh), np.asarray(ref.t),
+                               rtol=1e-5)
+    for a, b in zip(n_sh, ref.normal):
+        np.testing.assert_allclose(np.asarray(a)[hit], np.asarray(b)[hit],
+                                   atol=1e-4)
 
 
 def test_scene_sharding_rejects_brute():
@@ -373,3 +384,13 @@ def test_pallas_tracer_under_shard_map():
     assert img.shape == (32, 32, 3)
     assert np.isfinite(img).all()
     assert img.max() > 0.05
+
+
+def test_graft_entry_and_dryrun():
+    import __graft_entry__ as ge
+
+    fn, args = ge.entry()
+    out = jax.jit(fn)(*args)
+    jax.block_until_ready(out)
+    assert np.isfinite(np.asarray(out.accum)).all()
+    ge.dryrun_multichip(8)

@@ -1,9 +1,10 @@
 """Tracer-level unit tests: sphere candidate scaling + best-t seed semantics.
 
-The sphere path resolves the winner's center/material with a one-hot matmul
-(O(1) graph size in sphere count — the TPU-shaped equivalent of the
-reference's IntersectSphereBVH, RayTraceShader.compute:329-361). These tests
-pin its behavior against a straightforward per-ray numpy reference at S=512.
+The sphere path is a dense (rays x spheres) test plus one gather per
+attribute of the winner (O(1) graph size in sphere count — the stand-in for
+the reference's IntersectSphereBVH, RayTraceShader.compute:329-361). These
+tests pin its behavior against a straightforward per-ray numpy reference at
+S=512.
 """
 
 import numpy as np

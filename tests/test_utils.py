@@ -147,38 +147,49 @@ def test_screenshot(tmp_path):
     assert os.path.getsize(path) > 100
 
 
-def test_persistent_compile_cache(tmp_path):
+def test_persistent_compile_cache(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR unset: the fixed <checkout>/.cache/jax."""
     import jax
 
-    from unityraytracer_tpu.utils.compcache import enable_persistent_cache
+    from unityraytracer_tpu.utils import compcache
 
     prev_dir = jax.config.jax_compilation_cache_dir
-    prev_env = os.environ.get("URT_COMPILE_CACHE")
-    d = str(tmp_path / "jaxcache")
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     try:
-        from unityraytracer_tpu.utils.compcache import (cache_namespace,
-                                                        host_fingerprint)
-
-        used = enable_persistent_cache(d)
-        # Namespaced per backend (+ host fingerprint on CPU): a CPU AOT
-        # executable compiled on another machine can never be served here.
-        expect = os.path.join(d, cache_namespace(jax.default_backend()))
-        assert used == expect
+        used = compcache.enable_persistent_cache()
+        assert used == compcache.DEFAULT_DIR
         assert os.path.isdir(used)
         assert jax.config.jax_compilation_cache_dir == used
-        # Two distinct host fingerprints resolve to distinct CPU cache dirs;
-        # TPU namespaces are fingerprint-free (executables are host-portable).
-        assert cache_namespace("cpu", "aaaa") != cache_namespace("cpu", "bbbb")
-        assert cache_namespace("tpu") == "tpu"
-        assert len(host_fingerprint()) == 12
-        # Env-var opt-out returns None and leaves config untouched.
-        os.environ["URT_COMPILE_CACHE"] = ""
-        assert enable_persistent_cache() is None
     finally:
-        # Restore session state: don't leave the cache pointed at a pytest
-        # tmp dir or clobber a pre-existing env opt-out/opt-in.
         jax.config.update("jax_compilation_cache_dir", prev_dir)
-        if prev_env is None:
-            os.environ.pop("URT_COMPILE_CACHE", None)
-        else:
-            os.environ["URT_COMPILE_CACHE"] = prev_env
+
+
+def test_persistent_compile_cache_env_dir(tmp_path, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR set: that directory as given (JAX reads
+    the variable itself), and the code points the cache nowhere else."""
+    import jax
+
+    from unityraytracer_tpu.utils import compcache
+
+    prev_dir = jax.config.jax_compilation_cache_dir
+    d = str(tmp_path / "jaxcache")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", d)
+    try:
+        jax.config.update("jax_compilation_cache_dir", d)
+        assert compcache.enable_persistent_cache() == d
+        assert jax.config.jax_compilation_cache_dir == d
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev_dir)
+
+
+def test_compile_cache_default_is_the_checkout(monkeypatch):
+    """The default path is fixed: <checkout>/.cache/jax, made from no
+    temporary name, pid or time, so a rerun of the checkout finds it."""
+    from unityraytracer_tpu.utils import compcache
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert compcache.DEFAULT_DIR == os.path.join(root, ".cache", "jax")
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    assert compcache.cache_dir() == compcache.DEFAULT_DIR
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere/cache")
+    assert compcache.cache_dir() == "/elsewhere/cache"

@@ -1,10 +1,11 @@
-"""unityraytracer_tpu: a TPU-native progressive Monte-Carlo path tracer.
+"""unityraytracer_tpu: a progressive Monte-Carlo path tracer for GPUs.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
-Unity compute-shader ray tracer (RemyMuj/UnityRayTracer): sphere / mesh /
+Built in JAX/XLA with a Pallas (Triton) closest-hit kernel, with the
+capabilities of the reference Unity compute-shader ray tracer
+(RemyMuj/UnityRayTracer): sphere / mesh /
 ground-plane scenes, albedo-specular-emissive roulette BRDF, Moller-Trumbore
 triangles with barycentric smooth normals, LBVH acceleration, HDRI equirect
-skyboxes, progressive accumulation, and multi-chip framebuffer sharding.
+skyboxes, progressive accumulation, and multi-device framebuffer sharding.
 """
 
 from .config import RenderConfig

@@ -77,15 +77,11 @@ def _build_scene(args):
 
 
 def _make_renderer(args):
-    import jax
-
     from . import RenderConfig, Renderer
+    from .render import default_tracer
 
-    on_tpu = jax.default_backend() == "tpu"
-    tracer = args.tracer or ("pallas" if on_tpu else "cluster")
+    tracer = args.tracer or default_tracer()
     shard = getattr(args, "shard", None)
-    if shard == "scene" and tracer == "pallas":
-        tracer = "cluster"  # scene sharding traces HBM-resident (see docs)
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        bounces=args.bounces, tracer=tracer,
                        wavefront=True, rng_impl=args.rng,
@@ -115,21 +111,23 @@ def _add_common(p):
     p.add_argument("--spp", type=int, default=1)
     p.add_argument("--bounces", type=int, default=8)
     p.add_argument("--tracer", default=None,
-                   help="brute|bvh|cluster|pallas (default: auto)")
+                   help="brute|bvh|cluster|pallas (default: pallas on a "
+                        "GPU, cluster on the CPU)")
     p.add_argument("--rng", default="threefry2x32",
-                   help="threefry2x32|rbg (rbg = TPU hardware bits)")
+                   help="threefry2x32|rbg (rbg = XLA RngBitGenerator bits, "
+                        "backend-specific streams)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bands", type=int, default=None,
                    help="render each frame as N band dispatches (bounds "
-                        "single-dispatch device time for huge HBM-tier "
-                        "scenes; see RenderConfig.dispatch_bands)")
+                        "single-dispatch device time and memory; see "
+                        "RenderConfig.dispatch_bands)")
     p.add_argument("--frames", type=int, default=32,
                    help="progressive samples to accumulate")
     p.add_argument("--tris", type=int, default=100_000,
                    help="triangle count for --scene bench")
     p.add_argument("--shard", default=None,
                    choices=["rows", "spp", "scene"],
-                   help="multi-chip mode over all devices: rows = "
+                   help="multi-device mode over all devices: rows = "
                         "framebuffer bands, spp = sample-parallel pmean, "
                         "scene = 1/n of the triangles per device")
 
@@ -137,7 +135,7 @@ def _add_common(p):
 def main(argv=None) -> int:
     from .utils.compcache import enable_persistent_cache
 
-    enable_persistent_cache()  # repeat CLI renders skip the remote compile
+    enable_persistent_cache()  # repeat CLI renders skip the compile
     ap = argparse.ArgumentParser(prog="unityraytracer_tpu",
                                  description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -176,7 +174,7 @@ def main(argv=None) -> int:
     r = _make_renderer(args)
     if args.cmd == "preview":
         if args.shard:
-            print("--shard applies to `render` (preview is single-chip)",
+            print("--shard applies to `render` (preview is single-device)",
                   file=sys.stderr)
             return 2
         r.watch(args.out, every=args.every, frames=args.frames,
@@ -200,7 +198,7 @@ def main(argv=None) -> int:
             r.save_aovs(args.aovs)
             print(f"wrote {args.aovs} (beauty/albedo/normal/depth/emission)")
         else:
-            print("--aovs needs the single-chip renderer (no --shard)",
+            print("--aovs needs the single-device renderer (no --shard)",
                   file=sys.stderr)
     return 0
 

@@ -15,15 +15,16 @@ Conventions match the Unity scenes: left-handed, +y up, camera forward +z.
 
 from __future__ import annotations
 
+import dataclasses
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .utils.math3d import normalize
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class Camera:
     """Pinhole/thin-lens camera.
 
@@ -165,8 +166,7 @@ def camera_rays_soa(camera: Camera, u, v, lens_u=None, lens_v=None):
     """Generate world-space rays for NDC coordinates, component-SoA.
 
     All ray math stays in separate per-component arrays (see ops/vec.py for
-    the TPU layout rationale — stacked (..., 3) intermediates force padded
-    layouts at framebuffer scale).
+    the layout rationale).
 
     Args:
       camera: Camera pytree.

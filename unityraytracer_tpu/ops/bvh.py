@@ -10,9 +10,9 @@ RayTraceShader.compute:243). Design here, per BASELINE.json:
 * **Per-triangle leaves, grouped into fixed-size clusters.** Triangles are
   sorted by the Morton code of their centroid; each run of ``cluster_size``
   consecutive triangles forms a leaf cluster with a tight AABB. Fixed-width
-  clusters are the unit of work on TPU: a cluster intersection is a dense
-  (rays x cluster_size) Moller-Trumbore batch on the VPU — no per-triangle
-  divergence, static shapes.
+  clusters are the unit of work: a cluster intersection is a dense
+  (rays x cluster_size) Moller-Trumbore batch — no per-triangle divergence,
+  static shapes.
 * **Binary radix tree (Karras 2012) over clusters** for hierarchical culling,
   built host-side (the reference also builds its BVH on the host,
   `RayTraceMaster.cs:725-746`). A native C++ builder (csrc/lbvh.cpp) handles
@@ -24,16 +24,18 @@ Root is node 0. Leaf k covers triangles [k*S, (k+1)*S).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import numpy as np
+import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..scene import Scene, Triangles
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class ClusterAccel:
     """Render-ready acceleration structure (device arrays)."""
 
@@ -249,37 +251,8 @@ def build_cluster_accel(triangles: Triangles, cluster_size: int = 64,
     )
 
 
-def build_accel(scene: Scene, cfg):
-    """Build the acceleration structure a config's tracer needs.
-
-    "bvh"/"cluster" get the raw ClusterAccel; "pallas" additionally pre-packs
-    the kernel SoA layout (host-side numpy, so it must happen outside jit).
-    """
-    if getattr(cfg, "tracer", None) == "pallas":
-        # The Pallas prep re-orders triangles with its own kd median split
-        # and never reads the LBVH tree — skip the radix-tree build entirely.
-        from .pallas_trace import (PallasVmemError, prepare_pallas_accel,
-                                   prepare_pallas_accel_sharded)
-        try:
-            return prepare_pallas_accel(scene.triangles, scene.materials,
-                                        scene=scene)
-        except PallasVmemError as e:
-            from ..utils.logging import get_logger
-            get_logger().warn(str(e))
-        # Mid tier: VMEM-sized accel shards chained by best-t seeds keep
-        # the kernel path (per-bounce) for scenes up to the ~2M addressing
-        # bound; the HBM-resident cluster tracer stays the last resort.
-        try:
-            sh = prepare_pallas_accel_sharded(scene.triangles,
-                                              scene.materials)
-            from ..utils.logging import get_logger
-            get_logger().warn(
-                f"sharded Pallas accel: {sh.n_shards} shards "
-                "(per-bounce path; megakernel needs the scene resident)")
-            return sh
-        except (PallasVmemError, ValueError) as e:
-            from ..utils.logging import get_logger
-            get_logger().warn(str(e))
+def build_accel(scene: Scene, cfg) -> ClusterAccel:
+    """Build the acceleration structure every accelerated tracer walks."""
     return build_cluster_accel(scene.triangles, cluster_size=cfg.cluster_size)
 
 

@@ -4,8 +4,8 @@ These are the correctness-reference implementations of the reference's device
 intersectors (`RayTraceShader.compute:156-291`), written as dense batched ops:
 rays are component-SoA (Vec3 tuples of (R,) arrays; ops/vec.py) broadcast
 against ``(P,)`` primitive SoA arrays, returning ``(R, P)`` (or ``(R,)``)
-results that the caller reduces. The Pallas fast path reuses the same math on
-VMEM tiles.
+results that the caller reduces. The Pallas kernel (ops/gpu_trace.py)
+reuses the same math on register tiles.
 """
 
 from __future__ import annotations

@@ -3,10 +3,9 @@
 The reference uses a sequential per-pixel ``frac(sin(...))`` hash RNG
 (`RayTraceShader.compute:77-81`) whose stream advances by side effect — not
 reproducible in a vectorized rebuild (SURVEY.md defect #8). We use JAX's
-counter-based threefry keys at the XLA level and ``pltpu.prng_*`` inside
-Pallas kernels; the estimator (hemisphere pdfs, roulette weights) matches the
-reference exactly, so converged images agree even though individual sample
-streams differ.
+counter-based threefry keys; the estimator (hemisphere pdfs, roulette
+weights) matches the reference exactly, so converged images agree even
+though individual sample streams differ.
 
 Directions are component-SoA Vec3 tuples (see ops/vec.py for why).
 """
@@ -30,10 +29,7 @@ def tangent_frame(n: Vec3):
     gives the SAME sampling distribution here (the azimuth angle is uniform,
     so the lobe's law is invariant to the azimuthal reference); this cheaper
     construction only changes which concrete direction a given uniform maps
-    to — Monte-Carlo stream, not estimator. Measured on v5e: frame-time
-    NEUTRAL on the bench scene (212.5 vs 210.7 ms — the megakernel is
-    epilogue-bound, not shade-bound), kept for the ~14-op reduction per
-    bounce and the simpler in-kernel twin.
+    to — Monte-Carlo stream, not estimator.
     """
     s = jnp.where(n[2] >= 0.0, 1.0, -1.0)
     a = -1.0 / (s + n[2])
@@ -41,22 +37,6 @@ def tangent_frame(n: Vec3):
     tangent = (1.0 + s * n[0] * n[0] * a, s * b, -s * n[0])
     binormal = (b, s + n[1] * n[1] * a, -n[1])
     return tangent, binormal
-
-
-def sample_hemisphere_ct(cos_t, cos_phi, sin_phi, axis: Vec3) -> Vec3:
-    """Hemisphere sample from precomputed cos(theta) and phi trig.
-
-    Split out so callers inside Pallas kernels can feed XLA-precomputed
-    trig (Mosaic's sin/cos/pow lower to slow generic polynomials, while the
-    trig of a UNIFORM is a pure function of it — computable once per frame
-    outside the kernel with the stream unchanged).
-    """
-    sin_t = jnp.sqrt(jnp.maximum(1.0 - cos_t * cos_t, 0.0))
-    tangent, binormal = tangent_frame(axis)
-    ca, sa = cos_phi * sin_t, sin_phi * sin_t
-    return (tangent[0] * ca + binormal[0] * sa + axis[0] * cos_t,
-            tangent[1] * ca + binormal[1] * sa + axis[1] * cos_t,
-            tangent[2] * ca + binormal[2] * sa + axis[2] * cos_t)
 
 
 def sample_hemisphere(u1, u2, axis: Vec3, alpha) -> Vec3:
@@ -68,8 +48,13 @@ def sample_hemisphere(u1, u2, axis: Vec3, alpha) -> Vec3:
     clamp zeroes those, as in the reference.
     """
     cos_t = jnp.power(jnp.maximum(u1, 1e-12), 1.0 / (alpha + 1.0))
+    sin_t = jnp.sqrt(jnp.maximum(1.0 - cos_t * cos_t, 0.0))
     phi = 2.0 * PI * u2
-    return sample_hemisphere_ct(cos_t, jnp.cos(phi), jnp.sin(phi), axis)
+    tangent, binormal = tangent_frame(axis)
+    ca, sa = jnp.cos(phi) * sin_t, jnp.sin(phi) * sin_t
+    return (tangent[0] * ca + binormal[0] * sa + axis[0] * cos_t,
+            tangent[1] * ca + binormal[1] * sa + axis[1] * cos_t,
+            tangent[2] * ca + binormal[2] * sa + axis[2] * cos_t)
 
 
 def sample_unit_disk(u1, u2):
@@ -77,12 +62,3 @@ def sample_unit_disk(u1, u2):
     r = jnp.sqrt(u1)
     phi = 2.0 * PI * u2
     return r * jnp.cos(phi), r * jnp.sin(phi)
-
-
-def uniform_from_bits(bits):
-    """uint32 random bits -> float32 uniforms in [0, 1).
-
-    Used inside Pallas kernels with ``pltpu.prng_random_bits``: keep the top
-    24 bits so the float is exact.
-    """
-    return (bits >> jnp.uint32(8)).astype(jnp.float32) * jnp.float32(1.0 / (1 << 24))

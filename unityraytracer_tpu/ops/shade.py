@@ -3,21 +3,21 @@ RayTraceShader.compute:386-428), fully vectorized and branchless.
 
 Per bounce the reference mutates the ray in place and returns the radiance
 contribution; here the same update is a pure function over component-SoA
-arrays (Vec3 tuples of (N,) — see ops/vec.py for the TPU layout rationale):
+arrays (Vec3 tuples of (N,) — see ops/vec.py for the layout rationale):
 
   contribution = energy_before * (emission | skybox)
   energy_after = energy_before * lobe_weight          (0 on miss/terminate)
 
 All three roulette branches are computed for every lane and selected with
-``where`` — on TPU there is no divergence to save, so branchless select is
-the idiomatic form of the reference's if/else chain.
+``where`` — the branchless form of the reference's if/else chain, which
+XLA fuses into one elementwise kernel.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
+import jax
 import jax.numpy as jnp
-from flax import struct
 
 from . import vec
 from .vec import Vec3
@@ -26,7 +26,8 @@ from .sampling import sample_hemisphere, PI
 MISS_T = 1e30  # distances >= this are misses (reference uses 1.#INF, compute:128)
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class Hit:
     """Per-ray hit record (RayHit analog, compute:36-41), component-SoA."""
 
@@ -88,10 +89,9 @@ def sample_skybox(skybox, rd: Vec3) -> Vec3:
 def pack_rgbe(skybox):
     """(H, W, 3) float -> (H*W,) uint32 shared-exponent RGBE texels.
 
-    The environment lookup is the only per-ray gather left in the frame, and
-    TPU gathers cost ~22 ns/element — packing a texel into one word makes a
-    bilinear lookup 4 gathers instead of 12 (~0.4% radiance quantization,
-    far below Monte-Carlo noise).
+    Packing a texel into one word makes a bilinear environment lookup 4
+    gathers instead of 12 (~0.4% radiance quantization, far below
+    Monte-Carlo noise).
     """
     m = jnp.max(skybox, axis=-1)
     exp = jnp.ceil(jnp.log2(jnp.maximum(m, 1e-30))).astype(jnp.int32) + 1
@@ -108,7 +108,7 @@ def pack_rgbe_np(skybox):
     The packed plane is baked into the Scene pytree ONCE at build (and
     device_put with the rest of the scene) so the per-frame jitted step never
     re-packs the environment map — for a 4K HDRI that is ~8M texels of
-    redundant VPU work per frame otherwise.
+    redundant work per frame otherwise.
     """
     import numpy as _np
 
@@ -154,9 +154,8 @@ def sample_skybox_rgbe(skybox, rd: Vec3, bilinear: bool = True,
     With ``u1``/``u2`` (per-ray uniforms), a single STOCHASTIC tap picks each
     bilinear corner with probability equal to its weight — the expectation is
     exactly bilinear, so the progressive accumulator converges to the
-    filtered result at a quarter of the gather cost (gathers are the scarce
-    resource on TPU). One extra dither of per-frame sky noise, well below
-    path-tracing variance.
+    filtered result at a quarter of the gather cost. One extra dither of
+    per-frame sky noise, well below path-tracing variance.
 
     ``packed``: optional prepacked (H*W,) uint32 RGBE plane (SceneBuilder
     bakes one at build so jitted frames skip the per-frame repack).
@@ -184,25 +183,19 @@ def sample_skybox_rgbe(skybox, rd: Vec3, bilinear: bool = True,
     return tuple(out)
 
 
-def shade(ro: Vec3, rd: Vec3, energy: Vec3, hit: Hit, uniforms, trig=None):
+def shade(ro: Vec3, rd: Vec3, energy: Vec3, hit: Hit, uniforms):
     """One bounce of the reference BRDF (environment handled by the caller).
 
     The reference samples the skybox inside Shade on miss (compute:424-426);
     here the caller records (direction, throughput) at each ray's first miss
     and resolves the environment ONCE per frame — a ray can only miss with
-    nonzero energy once, and per-ray texture gathers are the scarcest
-    resource on TPU.
+    nonzero energy once.
 
     Args:
       ro, rd: Vec3 of (N,) current ray origins / unit directions.
       energy: Vec3 of (N,) path throughput before this bounce.
       hit: Hit SoA (t >= MISS_T marks skybox rays).
       uniforms: 3-tuple of (N,) independent U[0,1) samples (roulette, u1, u2).
-      trig: optional (log2_u1, cos_phi, sin_phi) precomputed from u1/u2 —
-        used by the Pallas megakernel, where Mosaic's pow/sin/cos are slow
-        generic lowerings; the stream is unchanged because each is a pure
-        function of the same uniform (alpha's power also becomes a native
-        exp2 in this mode, equal to within float op-order noise).
 
     Returns:
       (new_ro, new_rd, new_energy, radiance, missed): radiance is this
@@ -235,18 +228,8 @@ def shade(ro: Vec3, rd: Vec3, energy: Vec3, hit: Hit, uniforms, trig=None):
     # tangent-frame/trig work of evaluating both lobes.
     refl = vec.reflect(rd, n)
     axis = vec.where(is_spec, refl, n)
-    if trig is None:
-        alpha = jnp.power(1000.0, hit.smoothness * hit.smoothness)
-        new_dir = sample_hemisphere(u1, u2, axis,
-                                    jnp.where(is_spec, alpha, 1.0))
-    else:
-        from .sampling import sample_hemisphere_ct
-
-        log2_u1, cos_phi, sin_phi = trig
-        s2 = hit.smoothness * hit.smoothness
-        alpha = jnp.exp2(s2 * jnp.float32(np.log2(1000.0)))
-        cos_t = jnp.exp2(log2_u1 / jnp.where(is_spec, alpha + 1.0, 2.0))
-        new_dir = sample_hemisphere_ct(cos_t, cos_phi, sin_phi, axis)
+    alpha = jnp.power(1000.0, hit.smoothness * hit.smoothness)
+    new_dir = sample_hemisphere(u1, u2, axis, jnp.where(is_spec, alpha, 1.0))
     f = (alpha + 2.0) / (alpha + 1.0)
     w_spec_s = vec.sdot(n, new_dir, f) / jnp.maximum(spec_chance, 1e-8)
     w_spec = vec.scale(hit.specular, w_spec_s)

@@ -3,7 +3,7 @@
 ``trace_brute`` is the dense correctness reference (the analog of the
 reference's Trace, RayTraceShader.compute:364-383, with BVHs replaced by
 exhaustive tests). Acceleration-structure tracers live in ``traverse.py``
-(pure-jnp LBVH) and ``pallas_trace.py`` (fused TPU kernel); all take/return
+(pure-jnp LBVH) and ``gpu_trace.py`` (Triton kernel); all take/return
 component-SoA rays (Vec3 tuples; ops/vec.py) and the same Hit SoA so the
 renderer swaps them freely.
 """
@@ -80,52 +80,23 @@ def _ground_candidate(scene: Scene, ro: Vec3, rd: Vec3):
 
 
 def _sphere_candidate(scene: Scene, ro: Vec3, rd: Vec3):
-    """Closest sphere hit with one-hot MATMUL attribute resolution.
-
-    Per-ray gathers run serially on TPU (~22 ns/element = 46 ms per 2M-ray
-    gather), so the winner's center/material are resolved gather-free: the
-    (R, S) one-hot winner matrix contracted against each per-sphere attribute
-    column selects every ray's values in one fused matvec. The graph is O(1)
-    in sphere count (the reference needs a sphere BVH for this,
-    RayTraceShader.compute:329-361; dense + matmul is the TPU-shaped
-    equivalent — S spheres cost S FLOPs/ray on full-width vector units, and
-    at Scene1's S=8 the whole candidate is noise next to the triangle pass).
-    Property-tested against per-sphere reference resolution at S=512.
-    """
+    """Closest sphere hit: a dense (R, S) test (the reference needs a sphere
+    BVH for this, RayTraceShader.compute:329-361; at Scene1's S=8 the dense
+    test is noise next to the triangle pass), then one gather per attribute
+    of the winning sphere."""
     sp = scene.spheres
-    S = sp.count
-    if S == 0:
+    if sp.count == 0:
         return _empty_candidate(ro[0])
     ts = intersect_spheres(ro, rd, sp.center, sp.radius)  # (R, S)
     t = jnp.min(ts, axis=1)
     best = jnp.argmin(ts, axis=1)
-    onehot = (best[:, None] == jnp.arange(S)[None, :]).astype(t.dtype)  # (R,S)
-
-    mats = scene.materials
-    mid = sp.material_id
-    # Per-sphere attribute columns ((S,) each; the material rows are one
-    # S-sized gather per trace — O(S), not O(rays)).
-    cols = dict(
-        center=tuple(sp.center[:, k] for k in range(3)),
-        albedo=tuple(mats.albedo[mid, k] for k in range(3)),
-        specular=tuple(mats.specular[mid, k] for k in range(3)),
-        emission=tuple(mats.emission[mid, k] for k in range(3)),
-    )
-    pick = lambda col: jnp.dot(onehot, col,
-                               preferred_element_type=t.dtype)  # (R,)
-    sel = {k: tuple(pick(c) for c in v) for k, v in cols.items()}
-    smooth = pick(mats.smoothness[mid])
-
     pos = vec.add(ro, vec.scale(rd, t))
-    n = vec.normalize(vec.sub(pos, sel["center"]))
-    return dict(t=t, normal=n, albedo=sel["albedo"],
-                specular=sel["specular"], emission=sel["emission"],
-                smoothness=smooth)
+    n = vec.normalize(vec.sub(pos, vec.gather_rows(sp.center, best)))
+    return dict(t=t, normal=n, **materials_for(scene, sp.material_id[best]))
 
 
 def materials_for(scene: Scene, mid):
-    """Per-ray material params by id gather (CPU/reference paths only —
-    the TPU hot path resolves materials inside the Pallas kernel)."""
+    """Per-ray material params by id gather."""
     mats = scene.materials
     return dict(albedo=vec.gather_rows(mats.albedo, mid),
                 specular=vec.gather_rows(mats.specular, mid),
@@ -153,8 +124,7 @@ def _triangle_candidate(scene: Scene, ro: Vec3, rd: Vec3):
 
 def fold_candidate(best, c):
     """One strict nearest-wins fold step over full-material candidate
-    dicts (the left-fold unit of ``combine_candidates``; also the
-    ``lax.scan`` carry update of the sharded Pallas chain)."""
+    dicts (the left-fold unit of ``combine_candidates``)."""
     closer = c["t"] < best["t"]
     return dict(
         t=jnp.where(closer, c["t"], best["t"]),
@@ -183,14 +153,13 @@ def combine_candidates(scene: Scene, ro: Vec3, rd: Vec3, candidates) -> Hit:
 
 
 def trace_brute(scene: Scene, ro: Vec3, rd: Vec3, alive=None,
-                bin_rays: bool = False, chunk: int = 8192) -> Hit:
+                chunk: int = 8192) -> Hit:
     """Exhaustive closest-hit over ground + spheres + triangles.
 
-    ``alive``/``bin_rays`` are accepted for tracer-interface parity (the
-    Pallas tracer uses them for dead-ray skipping and coherence binning);
-    the dense oracle ignores them.
+    ``alive`` is accepted for tracer-interface parity (the Pallas tracer
+    skips dead rays); the dense oracle ignores it.
     """
-    del alive, bin_rays
+    del alive
 
     def body(rox, roy, roz, rdx, rdy, rdz):
         ro_c = (rox, roy, roz)

@@ -1,23 +1,21 @@
 """Accelerated closest-hit tracers over the cluster LBVH.
 
-Two pure-JAX strategies (the Pallas kernel in ``pallas_trace.py`` is the
+Two pure-JAX strategies (the Triton kernel in ``gpu_trace.py`` is the
 third), all taking/returning component-SoA rays and Hit records:
 
 * ``trace_bvh``: classic per-ray stack traversal of the radix tree
   (the correct version of IntersectMeshBVH, RayTraceShader.compute:294-326),
   expressed as a single lock-step ``lax.while_loop`` over a (R,) batch with
-  per-ray stacks — the TPU form of divergent traversal (masked lanes instead
-  of thread divergence; SURVEY.md "divergence without divergence").
+  per-ray stacks (masked lanes instead of thread divergence).
 
 * ``trace_cluster``: dense cluster culling — test all cluster AABBs per ray
   (vectorized slab test), sort clusters by entry distance, then sweep the
   sorted list in fixed-size rounds inside a ``while_loop`` that stops once
   every ray's best hit precedes the nearest unvisited cluster. Exact, fully
-  vectorized, no per-lane gathers in the hot loop.
+  vectorized.
 
-Both handle spheres and ground via the dense candidates (sphere counts are
-tiny — a sphere BVH like the reference's would be pure overhead on TPU; the
-dense test is one fused op).
+All handle spheres and ground via the dense candidates (sphere counts are
+tiny; the dense test is one fused op).
 """
 
 from __future__ import annotations
@@ -237,43 +235,42 @@ def _triangle_cluster_candidate(scene, accel: ClusterAccel, ro: Vec3, rd: Vec3,
 # ---------------------------------------------------------------------------
 
 def make_accel_tracer(scene: Scene, accel: ClusterAccel, cfg):
-    """Build ``fn(ro, rd) -> Hit`` for cfg.tracer in {bvh, cluster, pallas}."""
-    if cfg.tracer == "pallas":
-        from .pallas_trace import (PallasAccel, PallasVmemError,
-                                   ShardedPallasAccel, make_pallas_tracer)
-        traced = any(isinstance(l, jax.core.Tracer)
-                     for l in jax.tree_util.tree_leaves(accel))
-        if isinstance(accel, (PallasAccel, ShardedPallasAccel)) \
-                or not traced:
-            try:
-                return make_pallas_tracer(scene, accel, cfg)
-            except PallasVmemError as e:
-                # Oversize scene: serve tracer="pallas" through the
-                # cluster path (warned here; build_accel warns at build).
-                from ..utils.logging import get_logger
-                get_logger().warn(str(e))
-        # else: a TRACED ClusterAccel under tracer="pallas" — build_accel's
-        # VMEM fallback already decided against the megakernel (Pallas prep
-        # is host-side numpy and cannot run under jit), so route the jitted
-        # render through the cluster path directly.
+    """Build ``fn(ro, rd, alive=None) -> Hit`` for cfg.tracer in
+    {bvh, cluster, pallas}. "pallas" traces triangles with the Triton kernel
+    (``gpu_trace``) over all rays at once; the XLA tracers run in
+    ``cfg.ray_chunk``-ray chunks."""
     # Builders hand out host-numpy pytrees; traced indexing needs jnp leaves
     # (no-op on tracers/device arrays).
     scene = jax.tree_util.tree_map(jnp.asarray, scene)
     accel = jax.tree_util.tree_map(jnp.asarray, accel)
-
-    tri_fn = {"bvh": _triangle_bvh_candidate,
-              "cluster": _triangle_cluster_candidate,
-              "pallas": _triangle_cluster_candidate}[cfg.tracer]
     has_tris = scene.num_triangles > 0
 
-    def tracer(ro: Vec3, rd: Vec3, alive=None, bin_rays: bool = False) -> Hit:
-        del alive, bin_rays  # Pallas-tracer optimizations
+    def candidates(ro: Vec3, rd: Vec3):
+        return [_ground_candidate(scene, ro, rd),
+                _sphere_candidate(scene, ro, rd)]
+
+    if cfg.tracer == "pallas":
+        from .gpu_trace import trace_triangles
+
+        def tracer(ro: Vec3, rd: Vec3, alive=None) -> Hit:
+            cands = candidates(ro, rd)
+            if has_tris:
+                t, u, v, tri = trace_triangles(accel, ro, rd, alive)
+                cands.append(_finish_triangle_hit(scene, accel, t, u, v, tri))
+            return combine_candidates(scene, ro, rd, cands)
+
+        return tracer
+
+    tri_fn = {"bvh": _triangle_bvh_candidate,
+              "cluster": _triangle_cluster_candidate}[cfg.tracer]
+
+    def tracer(ro: Vec3, rd: Vec3, alive=None) -> Hit:
+        del alive  # dead rays are parked outside the scene (cfg.wavefront)
 
         def body(rox, roy, roz, rdx, rdy, rdz):
             ro_c = (rox, roy, roz)
             rd_c = (rdx, rdy, rdz)
-            cands = [_ground_candidate(scene, ro_c, rd_c),
-                     _sphere_candidate(scene, ro_c, rd_c)]
+            cands = candidates(ro_c, rd_c)
             if has_tris:
                 cands.append(tri_fn(scene, accel, ro_c, rd_c))
             return combine_candidates(scene, ro_c, rd_c, cands)

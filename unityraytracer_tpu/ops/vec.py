@@ -1,13 +1,9 @@
 """Component-SoA 3-vector math: a Vec3 is a tuple of three (N,) arrays.
 
-Why not (N, 3)? On TPU, XLA lays out arrays with the minor dimension in the
-128-wide lane axis. Once any op (a gather, a concatenate) pins an (N, 3)
-array to the {1,0} layout, the trailing 3 pads to 128 lanes — a 42x memory
-and bandwidth multiplier on every ray buffer (measured: a 1080p frame step's
-HLO temps ballooned to 54 GB padded vs 1.7 GB unpadded). Keeping each
-component a separate dense (N,) array makes good layouts structural instead
-of hoping the layout assigner cooperates, and matches the Pallas kernel's
-SoA operands exactly.
+Why not (N, 3)? Keeping each component a separate dense (N,) array gives
+every elementwise kernel unit-stride, coalesced loads and stores without
+relying on the layout assigner, and matches the Pallas kernel's SoA
+operands exactly.
 
 All functions broadcast over any common shape; "scalars" may be Python
 floats or () arrays.

@@ -1,7 +1,7 @@
-"""Cross-device SCENE sharding: each chip holds 1/n of the triangles.
+"""Cross-device SCENE sharding: each device holds 1/n of the triangles.
 
 The rows/spp modes in ``sharding.py`` REPLICATE the scene — fine until one
-chip's HBM can't hold the acceleration structure. This module is the
+device's memory can't hold the acceleration structure. This module is the
 renderer's tensor-parallel analog (the "long-context" axis of SURVEY.md §5):
 
 * **Host prep** (``shard_scene_accels``): triangles are pre-sorted by the
@@ -12,19 +12,17 @@ renderer's tensor-parallel analog (the "long-context" axis of SURVEY.md §5):
   admits them), and one equal-shape ``ClusterAccel`` is built per chunk.
   The per-chunk accels are stacked leaf-wise; ``jax.device_put`` with a
   ``P(AXIS)`` sharding then scatters shard k to device k — per-device accel
-  memory scales 1/n with the mesh. ``shard_scene_pallas_accels`` is the
-  same split packed as per-device VMEM-resident ``PallasAccel`` blocks:
-  scene sharding then runs the PER-BOUNCE Pallas kernel, and the per-chip
-  ~150k-triangle scoped-VMEM ceiling scales n× with the mesh.
+  memory scales 1/n with the mesh. Every accelerated tracer (the Triton
+  kernel included) walks its device's chunk.
 
 * **Device combine** (``allreduce_hit``): every device traces ALL rays
   against its sub-scene (plus the tiny replicated sphere/ground
   candidates — idempotent under min), then ONE packed all-reduce picks the
   global closest hit: ``pmin`` over t, a ``pmin`` tie-break on the device
   index, and a single stacked ``psum`` that selects the winner's 16
-  attribute rows. Communication is O(rows x rays x log n) over ICI per
-  bounce — the price of scene parallelism, exactly like tensor-parallel
-  matmul all-reduces.
+  attribute rows. Communication is O(rows x rays) per bounce over the
+  device links — the price of scene parallelism, exactly like
+  tensor-parallel matmul all-reduces.
 
 Shading stays replicated (identical RNG streams on every device make every
 device compute the identical image), so the result is bit-comparable to a
@@ -105,70 +103,6 @@ def shard_scene_accels(scene: Scene, cfg, n_dev: int):
     return jax.tree_util.tree_map(lambda *xs: np.stack(xs), *accels)
 
 
-def shard_scene_pallas_accels(scene: Scene, cfg, n_dev: int):
-    """1/n-triangle PallasAccel per device for the PER-BOUNCE Pallas kernel.
-
-    The scoped-VMEM ceiling that caps the single-chip Pallas path at ~150k
-    triangles (prepare_pallas_accel's exact check) scales with the mesh:
-    each device packs only its Morton-contiguous 1/n chunk, so an n-device
-    mesh keeps scenes up to ~n x 150k triangles on the fast kernel path
-    (the "long-context" scaling axis, SURVEY.md §5; no reference analog —
-    it is strictly single-GPU).
-
-    Stacking shards into one scatterable pytree requires every shard to
-    share ONE treedef, so the per-shard STATIC fields are normalized:
-
-    * chunks are padded to equal length with DEGENERATE triangles
-      (v0 == v1 == v2 at the shard's last real vertex — det == 0 is
-      rejected by the kernel's front test, and the point-AABB sits inside
-      the shard so no culling box inflates; the _FAR convention used for
-      the cluster shards would stretch the boundary page's AABB to 1e7
-      and get it admitted by nearly every ray);
-    * ``bbox`` is overridden with the GLOBAL scene bounds (it only seeds
-      the in-kernel binning's origin-cell quantization, and scene-sharded
-      rays span the whole scene on every device);
-    * ``order_ax`` (the global traversal-order fallback) is taken from
-      shard 0 — ordering is perf-only, and the per-page ``pgaxd`` codes
-      that actually drive visitation stay per-shard (array leaf).
-
-    Raises PallasVmemError if a 1/n chunk still overflows scoped VMEM —
-    callers fall back to ``shard_scene_accels`` + the cluster tracer.
-    """
-    from ..ops.pallas_trace import prepare_pallas_accel
-
-    v0, v1, v2, n0, n1, n2, mid, T = _morton_sorted_soa(scene)
-    per = max(-(-T // n_dev), 1)
-
-    accels = []
-    for k in range(n_dev):
-        sl = slice(k * per, (k + 1) * per)
-        cv0, cv1, cv2 = v0[sl], v1[sl], v2[sl]
-        cn0, cn1, cn2, cmid = n0[sl], n1[sl], n2[sl], mid[sl]
-        pad = per - len(cv0)
-        if pad:
-            anchor = (cv0[-1:] if len(cv0)
-                      else np.zeros((1, 3), np.float32))
-            pt = np.repeat(anchor, pad, axis=0)
-            cv0, cv1, cv2 = (np.concatenate([c, pt]) for c in (cv0, cv1, cv2))
-            zz = np.zeros((pad, 3), np.float32)
-            cn0, cn1, cn2 = (np.concatenate([c, zz]) for c in (cn0, cn1, cn2))
-            cmid = np.concatenate([cmid, np.zeros((pad,), cmid.dtype)])
-        tris = Triangles(v0=cv0, v1=cv1, v2=cv2,
-                         n0=cn0, n1=cn1, n2=cn2, material_id=cmid)
-        accels.append(prepare_pallas_accel(tris, scene.materials,
-                                           scene=scene))
-
-    if T:
-        lo = np.minimum(np.minimum(v0, v1), v2).min(axis=0)
-        hi = np.maximum(np.maximum(v0, v1), v2).max(axis=0)
-    else:
-        lo, hi = np.zeros(3), np.ones(3)
-    bbox = tuple(float(x) for x in np.concatenate([lo, hi]))
-    accels = [a.replace(bbox=bbox, order_ax=accels[0].order_ax)
-              for a in accels]
-    return jax.tree_util.tree_map(lambda *xs: np.stack(xs), *accels)
-
-
 def local_accel(stacked_accel) -> ClusterAccel:
     """Strip the leading device axis inside shard_map (local size 1)."""
     return jax.tree_util.tree_map(lambda a: a[0], stacked_accel)
@@ -213,7 +147,7 @@ def make_scene_sharded_tracer(scene: Scene, accel_local: ClusterAccel, cfg,
 
     base = make_accel_tracer(scene, accel_local, cfg)
 
-    def tracer(ro, rd, alive=None, bin_rays: bool = False) -> Hit:
-        return allreduce_hit(base(ro, rd, alive, bin_rays), axis, n_dev)
+    def tracer(ro, rd, alive=None) -> Hit:
+        return allreduce_hit(base(ro, rd, alive), axis, n_dev)
 
     return tracer

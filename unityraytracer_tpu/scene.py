@@ -3,7 +3,7 @@
 The reference keeps scene state in C# lists flattened per frame into 7 GPU
 buffers (`RayTraceMaster.cs:262-336,738-745`): mesh records with a
 localToWorld matrix + index ranges, shared vertex/index/normal pools, spheres,
-and two BVH node arrays. A TPU-native design differs in two deliberate ways:
+and two BVH node arrays. This design differs in two deliberate ways:
 
 * Geometry is **pre-transformed to world space at build time** — the reference
   re-multiplies every vertex by localToWorldMatrix inside the per-ray triangle
@@ -24,8 +24,8 @@ import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
+import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .utils.math3d import normal_matrix
 
@@ -56,7 +56,8 @@ GROUND_MATERIAL = Material(GROUND_ALBEDO, GROUND_SPECULAR, GROUND_EMISSION,
                            GROUND_SMOOTHNESS)
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class Materials:
     """SoA material table."""
 
@@ -86,7 +87,8 @@ class Materials:
         )
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class Spheres:
     """SoA sphere set (reference ``Sphere`` struct, RayTraceMaster.cs:116-131)."""
 
@@ -99,7 +101,8 @@ class Spheres:
         return self.center.shape[0]
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class Triangles:
     """World-space SoA triangle soup with smooth vertex normals.
 
@@ -121,7 +124,8 @@ class Triangles:
         return self.v0.shape[0]
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class Scene:
     """Complete render-ready scene."""
 

@@ -88,7 +88,7 @@ def to_implicit_heap(accel: ClusterAccel):
     cluster index in ``index`` (>= 0); internal nodes carry -1, exactly the
     ``index < 0`` parent test the reference traversal uses
     (RayTraceShader.compute:313-314). Pure numpy, debug/interop only — the
-    TPU kernels traverse the bitmask/page layout, never this.
+    tracers walk the ClusterAccel radix tree, never this.
 
     Returns ``(vmin, vmax, index)``: ``(M, 3) f32 ×2`` and ``(M,) int32``
     with ``M = 2**depth - 1`` for the deepest root-to-leaf path.

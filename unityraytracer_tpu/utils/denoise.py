@@ -4,12 +4,11 @@ The reference ships no denoiser (its only convergence tool is the running
 mean, AdditionShader.shader:40); a standalone production renderer needs one
 for interactive preview. This is the a-trous wavelet filter of Dammertz et
 al. 2010 ("Edge-Avoiding A-Trous Wavelet Transform for Fast Global
-Illumination Filtering"), TPU-shaped:
+Illumination Filtering"), gather-free:
 
 * Each iteration is a 5x5 B3-spline cross-bilateral pass with the kernel
   DILATED by 2^i — implemented as 25 shifted adds (jnp.roll) rather than a
-  gather, so XLA fuses it into dense vector code (no serial per-pixel
-  gathers, the scarce resource on TPU).
+  gather, so XLA fuses it into dense elementwise code.
 * The range (edge-stopping) weight uses per-pixel color distance against a
   sigma that the caller scales, optionally multiplied by albedo/normal
   guide terms from the first-hit G-buffer (render.render_aovs) — the
